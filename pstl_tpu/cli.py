@@ -1,7 +1,7 @@
 """Command-line interface.
 
 Parity target: the reference's single argparse parser (~115 flags,
-``nusc_train.py:1635-1814``) and its README e0..e8 command presets.  The TPU
+``nusc_train.py:1635-1814``) and its README e0..e8 command presets.  This
 build exposes subcommands over the same semantic knobs:
 
   python -m pstl_tpu.cli data     --out cache.npz [--scenes N] [--scene-len L]
@@ -70,7 +70,7 @@ def load_dataset(cfg: Config, args, scene_len=None):
     path = args.cache or (cfg.cache_path
                           if os.path.exists(cfg.cache_path or "") else None)
     if not cfg.offline and not path:
-        # the TPU build never runs the devkit at train/eval time (SURVEY
+        # this build never runs the devkit at train/eval time (SURVEY
         # §7): live (offline=False) sample assembly exists only in the
         # collection tool
         sys.exit("offline=False requires a collected cache: run "
@@ -377,6 +377,8 @@ def main(argv=None):
     pr.set_defaults(fn=cmd_presets)
 
     args = p.parse_args(argv)
+    from pstl_tpu.utils import device
+    device.configure_compile_cache()
     args.fn(args)
 
 

@@ -4,7 +4,7 @@ Replaces the reference's ``MyDataset``/``DataLoader`` stack
 (``nusc_dataset.py:12-244``, ``nusc_train.py:153-188``): instead of
 per-sample ``.npy`` sidecar files and worker processes, everything lives in
 one stacked array store (npz on disk, optionally served by the C++ shard
-runtime), and batching is pure array slicing — the TPU input pipeline is
+runtime), and batching is pure array slicing — the input pipeline is
 just an index shuffle + gather, so batches are ready to donate to device.
 
 Trajopt sidecars (params / params_init / pre_stlp / tj_scores_prior) are
@@ -157,8 +157,8 @@ def shard_store_iterator(store, ds: SceneDataset, split: str,
                          columns: Optional[Tuple[str, ...]] = None):
     """Batch iterator backed by the C++ shard store: the native worker
     thread assembles batch k+1 (mmap gather, thread pool) while batch k is
-    being transferred/consumed — the TPU-native replacement for the
-    reference's DataLoader(num_workers=8)."""
+    being transferred/consumed — the replacement for the reference's
+    DataLoader(num_workers=8)."""
     idx = ds.splits[split].copy()
     if shuffle:
         rng = np.random.RandomState(seed * 100003 + epoch)

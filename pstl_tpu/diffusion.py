@@ -11,7 +11,7 @@ Parity targets:
 - control denormalization ``normalize_diff`` (nusc_train.py:647-655)
 - multi-candidate argmax selection (nusc_train.py:993-1024, 1382-1400)
 
-TPU-first design: the whole T-1-step reverse process is ONE ``lax.scan`` —
+Design: the whole T-1-step reverse process is ONE ``lax.scan`` —
 the policy-net forward, the posterior update, the guidance gradient ascent
 (an inner ``fori_loop`` carrying Adam moments), and the noise injection all
 live in the scan body, so XLA compiles the entire sampler into a single
@@ -188,17 +188,6 @@ def _refresh_schedule(trig: np.ndarray, k: int) -> np.ndarray:
 _normal = jax.random.normal
 
 
-def _warm_pallas(guidance_ctx, cfg: Config) -> None:
-    """Precompute the denoise-step-invariant Pallas kernel operands OUTSIDE
-    the reverse scan so they become loop constants (the round-3 trace
-    showed their layout copies re-running in the while body every step —
-    docs/PERF.md).  No-op off the Pallas path."""
-    if (cfg.guidance_pallas and guidance_ctx is not None
-            and len(guidance_ctx) > 3 and guidance_ctx[3] is not None):
-        from pstl_tpu.ops import pallas_guidance as pg
-        pg.warm_invariants(guidance_ctx[3], cfg)
-
-
 def _guidance_step(mu: Array, beta_t: Array, ctx, cfg: Config,
                    maximize: bool, frozen=None, mu_cm=None,
                    cm_io: bool = False) -> Array:
@@ -233,32 +222,9 @@ def _guidance_step(mu: Array, beta_t: Array, ctx, cfg: Config,
         if frozen is None and cfg.guidance_reuse_selection:
             frozen = fused_loss.freeze_cm(mu_init)
 
-        if cfg.guidance_pallas and frozen is None:
-            raise ValueError(
-                "guidance_pallas needs frozen selections — set "
-                "guidance_reuse_selection=True (Config.finalize couples "
-                "this automatically)")
-        if cfg.guidance_pallas:
-            # the whole Adam loop as ONE Pallas program per scene — mu,
-            # moments, and frozen payloads stay in VMEM across all
-            # iterations; with fuse_freeze even the selections are
-            # computed in-VMEM (ops/pallas_guidance.py; equality-tested
-            # vs the XLA loop below in tests/test_pallas_guidance.py)
-            from pstl_tpu.ops import pallas_guidance as pg
-            mu_opt = pg.guidance_adam_cm(
-                fused_loss, frozen, mu_init, beta_t, thres, cfg,
-                interpret=cfg.pallas_interpret,
-                fuse_freeze=cfg.guidance_pallas_fuse_freeze)
-            return jax.lax.stop_gradient(post(mu_opt))
-
         def loss_fn(mu_cm_):
             return fused_loss.loss_cm(mu_cm_, thres, frozen=frozen)
     else:
-        if cfg.guidance_pallas:
-            raise ValueError(
-                "guidance_pallas needs the candidate-minor fused loss — "
-                "set guidance_fused_loss=True (Config.finalize couples "
-                "this automatically)")
         mu_init = mu
         post = lambda x: x
 
@@ -293,10 +259,9 @@ def _guidance_step(mu: Array, beta_t: Array, ctx, cfg: Config,
     if cfg.guidance_niters <= 8:
         # unroll the Adam iterations: niters is tiny and static, and a
         # lax.fori_loop lowers to a while-loop whose per-iteration entry
-        # barrier defeats XLA's cross-iteration fusion/prefetch
-        # scheduling (the round-3 trace showed per-iteration copy-start
-        # stalls, docs/PERF.md).  Same ops in the same order — identical
-        # numerics, straight-line HLO.
+        # barrier stops XLA fusing and scheduling across iterations.
+        # Same ops in the same order — identical numerics, straight-line
+        # HLO.
         for it in range(cfg.guidance_niters):
             carry = body(it, carry)
         mu_opt = carry[0]
@@ -304,90 +269,6 @@ def _guidance_step(mu: Array, beta_t: Array, ctx, cfg: Config,
         mu_opt, _, _ = jax.lax.fori_loop(0, cfg.guidance_niters, body,
                                          carry)
     return jax.lax.stop_gradient(post(mu_opt))
-
-
-def _reverse_superstep(key: Array, cfg: Config, coeffs: Coeffs,
-                       fused_loss, cm_fn: Callable, maximize: bool):
-    """Whole-denoise-step Pallas scan (``cfg.guidance_pallas_superstep``):
-    every scan step is ONE kernel call doing eps-MLP + posterior +
-    guidance + noise on folded (nt, bs*R) tiles — zero XLA fusions between
-    kernel launches (docs/PERF.md round 4).  The noise draws replicate
-    :func:`reverse_sample`'s cm-path key-split chain exactly, and the
-    per-step timestep-embedding layer-1 columns / DDPM coefficients are
-    precomputed as scan xs.  Returns (controls, all_steps) like
-    ``reverse_sample``."""
-    from pstl_tpu.models.net import pos_encoding, Net
-    from pstl_tpu.ops import pallas_guidance as pg
-    T = cfg.diffusion_steps
-    trig_np = _trigger_schedule(cfg)
-    always_guided = bool(trig_np.all())
-    never_guided = not bool(trig_np.any())
-    bs, R = fused_loss.bs, fused_loss.R
-    k_init, k_loop = jax.random.split(key)
-    x0 = constrain_candidates(
-        _normal(k_init, (bs, cfg.nt, 2, R)), -1, batch_dim=0)
-    pg.warm_invariants(fused_loss, cfg)
-    gscale = fused_loss._pallas_inv[1]["gscale"]
-    ops = dict(cm_fn.operands)
-    ops["base_f"] = pg._fold(ops.pop("base_cm"))            # (h1, Rf)
-    dt = ops["dt"]
-
-    ts = jnp.arange(T - 1, 0, -1)
-    # per-step layer-1 timestep columns (h1, 1) — one batched matmul
-    te_all = (pos_encoding(ts[:, None].astype(jnp.float32),
-                           Net.TIME_DIM).astype(dt)
-              @ ops["Wt"])[:, :, None].astype(dt)           # (T-1, h1, 1)
-    # per-step scalars: [beta, thres, gscale, c1, c2, c3, 0, 0]
-    beta = coeffs.beta[ts]
-    alpha = coeffs.alpha[ts]
-    alpha_hat = coeffs.alpha_hat[ts]
-    thres = 100.0 if maximize else cfg.stl_nn_thres
-    ones = jnp.ones_like(beta)
-    gvec_all = jnp.stack(
-        [beta, thres * ones, gscale * ones,
-         (1 - alpha) / jnp.sqrt(1 - alpha_hat), jnp.sqrt(alpha),
-         cfg.sample_noise_scale * jnp.sqrt(beta),
-         0 * ones, 0 * ones], axis=1)[:, None, :]           # (T-1, 1, 8)
-
-    # noise draws: the exact split chain of reverse_sample's cm path
-    def gen(k, t):
-        k, k_z = jax.random.split(k)
-        z = jnp.where(t > 1, _normal(k_z, (bs, cfg.nt, 2, R)), 0.0)
-        return k, (pg._fold(z[:, :, 0, :]), pg._fold(z[:, :, 1, :]))
-
-    _, (zw_all, za_all) = jax.lax.scan(gen, k_loop, ts)
-
-    def step(carry, xs):
-        xw, xa = carry
-        te_col, zw, za, gvec, triggered = xs
-        call = lambda g: pg.superstep_call(
-            fused_loss, ops, xw, xa, zw, za, te_col, gvec, cfg,
-            guided=g, interpret=cfg.pallas_interpret)
-        if always_guided:
-            out = call(True)
-        elif never_guided:
-            out = call(False)
-        else:
-            out = jax.lax.cond(triggered, lambda: call(True),
-                               lambda: call(False))
-        return out, (out if cfg.diff_full else None)
-
-    init = (pg._fold(x0[:, :, 0, :]), pg._fold(x0[:, :, 1, :]))
-    (xw_l, xa_l), hist = jax.lax.scan(
-        step, init, (te_all, zw_all, za_all, gvec_all, jnp.asarray(trig_np)),
-        unroll=cfg.diffusion_scan_unroll)
-    unfold = lambda w, a: jnp.stack(
-        [jnp.moveaxis(w.reshape(cfg.nt, bs, R), 1, 0),
-         jnp.moveaxis(a.reshape(cfg.nt, bs, R), 1, 0)], axis=2)
-    conv = fused_loss._from_cand_minor
-    if not cfg.diff_full:
-        final = denormalize_controls(conv(unfold(xw_l, xa_l)), cfg)
-        return final, final[None]
-    full_w = jnp.concatenate([init[0][None], hist[0]], axis=0)
-    full_a = jnp.concatenate([init[1][None], hist[1]], axis=0)
-    all_steps = jax.vmap(lambda w, a: denormalize_controls(
-        conv(unfold(w, a)), cfg))(full_w, full_a)
-    return all_steps[-1], all_steps
 
 
 def reverse_sample(key: Array, apply_fn: Callable, batch: Dict[str, Array],
@@ -413,8 +294,6 @@ def reverse_sample(key: Array, apply_fn: Callable, batch: Dict[str, Array],
     always_guided = use_guidance and bool(trig_np.all())
     trig = jnp.asarray(trig_np)
     k_init, k_loop = jax.random.split(key)
-    if use_guidance:
-        _warm_pallas(guidance_ctx, cfg)
 
     # guidance_sel_every > 1: carry the frozen argmin selections across
     # denoise steps, refreshing every k-th guided step (staleness stays
@@ -426,10 +305,6 @@ def reverse_sample(key: Array, apply_fn: Callable, batch: Dict[str, Array],
     # posterior mean, guidance, noise injection) runs in (bs, nt, 2, R)
     # layout — zero per-step transposes; one batched conversion at the end
     use_cm = (cm_fn is not None and fused_loss is not None and use_guidance)
-    if (use_cm and cfg.guidance_pallas_superstep
-            and hasattr(cm_fn, "operands")):
-        return _reverse_superstep(key, cfg, coeffs, fused_loss, cm_fn,
-                                  maximize)
     # opt-in candidate-axis (tensor-parallel) sharding: constraining the
     # candidate axis of the initial noise lets GSPMD shard the whole
     # reverse scan over the mesh (parallel/mesh.py candidate_sharding)
@@ -534,8 +409,6 @@ def reverse_sample_ddim(key: Array, apply_fn: Callable,
     taus = _fast_taus(cfg)
     taus_next = np.concatenate([taus[1:], [0]]).astype(np.int32)
     use_guidance = guidance_ctx is not None and cfg.guidance
-    if use_guidance:
-        _warm_pallas(guidance_ctx, cfg)
     k_init, k_loop = jax.random.split(key)
     x0 = constrain_candidates(jax.random.normal(k_init, (n, cfg.nt * 2)), 0)
     if mono:
@@ -593,8 +466,6 @@ def reverse_sample_dpmpp(key: Array, apply_fn: Callable,
     """
     taus = _fast_taus(cfg)
     use_guidance = guidance_ctx is not None and cfg.guidance
-    if use_guidance:
-        _warm_pallas(guidance_ctx, cfg)
     k_init, _ = jax.random.split(key)
     x0 = constrain_candidates(jax.random.normal(k_init, (n, cfg.nt * 2)), 0)
     if mono:

@@ -13,7 +13,7 @@ Convex-hull area is computed exactly with an O(m^2 * m) all-pairs edge test:
 a directed edge (i, j) lies on the ccw hull iff every other valid point is
 (weakly) left of it; summing cross(p_i, p_j)/2 over boundary edges of the
 closed ccw cycle gives the polygon area.  m = 64 candidates makes this a
-tiny batched VPU workload — far faster than 960 host Qhull calls per batch.
+tiny batched device workload — far faster than 960 host Qhull calls per batch.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def masked_std(x: Array, mask: Array, axis: int) -> Array:
 
 # The exact all-pairs hull test below is O(m^3) in candidates and builds an
 # (..., m, m, m) intermediate: at the default m=64 that is a tiny batched
-# VPU workload (beats 960 host Qhull calls per eval batch), but it scales
+# device workload (beats 960 host Qhull calls per eval batch), but it scales
 # as a cliff — m=256 would allocate 16.8M crosses PER (scene, maneuver, t)
 # cell.  Above this threshold hull_area switches to a host monotone-chain
 # (O(m log m)) via pure_callback.

@@ -1,4 +1,4 @@
-"""Policy network (diffusion / VAE / BC heads + RefineNet) in flax.linen.
+"""Policy network (diffusion / VAE / BC heads + RefineNet) in plain JAX.
 
 Parity target: ``nusc_model.py:8-289`` (``Net``).  Architecture: all-MLP.
 Encoders (ego 6->32, neighbor 7->32 with min/avg/max pooling over K, lane
@@ -8,18 +8,26 @@ the feature plus a mode-specific latent; the RefineNet head maps
 delta applied only to STL-violating samples, with an optional tanh interval
 reparameterization that keeps corrected controls inside the box constraints.
 
-TPU-first notes: matmuls run in a configurable compute dtype (bf16 by
-default) with fp32 params and fp32 outputs at the head; all candidate tiling
-is plain reshape/broadcast so XLA fuses it into the first matmul.
+Matmuls run in a configurable compute dtype (bf16 by default) with fp32
+params and fp32 outputs at the head; all candidate tiling is plain
+reshape/broadcast so XLA fuses it into the first matmul.
+
+Parameters are a plain nested dict ``{"params": {<head>: {"Dense_<i>":
+{"kernel", "bias"}}}}`` (lecun-normal kernels, zero biases, fp32).
+``Net(cfg).init(key, *args, method=...)`` builds it lazily, creating only
+the heads the traced method calls; ``Net(cfg).apply(params, *args,
+method=...)`` runs a method against it.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
+import zlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
 from pstl_tpu.config import Config
 
@@ -57,45 +65,101 @@ def pos_encoding(t: Array, channels: int) -> Array:
     return jnp.concatenate([jnp.sin(ang), jnp.cos(ang)], axis=-1)
 
 
-class MLP(nn.Module):
-    """Dense-ReLU stack, ReLU between layers only (utils.py:91-101)."""
-    features: Sequence[int]
-    dtype: jnp.dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x):
-        x = x.astype(self.dtype)
-        for i, f in enumerate(self.features):
-            x = nn.Dense(f, dtype=self.dtype, param_dtype=jnp.float32)(x)
-            if i < len(self.features) - 1:
-                x = nn.relu(x)
-        return x.astype(jnp.float32)
+def init_mlp(key: Array, d_in: int, features: Sequence[int]) -> Dict:
+    """Dense-stack parameters: lecun-normal kernels, zero biases, fp32."""
+    init = jax.nn.initializers.lecun_normal()
+    params = {}
+    for i, (k, f) in enumerate(zip(jax.random.split(key, len(features)),
+                                   features)):
+        params[f"Dense_{i}"] = {"kernel": init(k, (d_in, f), jnp.float32),
+                                "bias": jnp.zeros((f,), jnp.float32)}
+        d_in = f
+    return params
 
 
-class Net(nn.Module):
+def mlp_apply(params: Dict, x: Array, dtype=jnp.float32) -> Array:
+    """Dense-ReLU stack, ReLU between layers only (utils.py:91-101).
+    Inputs, kernels and biases are cast to ``dtype``; the output is fp32."""
+    n = len(params)
+    x = x.astype(dtype)
+    for i in range(n):
+        layer = params[f"Dense_{i}"]
+        x = jax.lax.dot_general(x, layer["kernel"].astype(dtype),
+                                (((x.ndim - 1,), (0,)), ((), ())))
+        x = x + layer["bias"].astype(dtype)
+        if i < n - 1:
+            x = jax.nn.relu(x)
+    return x.astype(jnp.float32)
+
+
+class _Scope:
+    """The parameter dict one ``init`` or ``apply`` call reads.  With a key
+    (``init``), a head that has no parameters yet gets fresh ones."""
+
+    def __init__(self, params: Dict, key: Optional[Array] = None):
+        self.params = params
+        self.key = key
+
+    def mlp(self, name: str, features: Tuple[int, ...], dtype, x: Array):
+        if name not in self.params:
+            if self.key is None:
+                raise KeyError(f"no parameters for head {name!r}")
+            k = jax.random.fold_in(self.key,
+                                   zlib.crc32(name.encode()) & 0x7FFFFFFF)
+            self.params[name] = init_mlp(k, x.shape[-1], features)
+        return mlp_apply(self.params[name], x, dtype)
+
+
+class Net:
     """Conditional policy network with diffusion / VAE / BC modes and an
     optional RefineNet rectification head."""
-    cfg: Config
 
     FEAT_DIM: int = 32
     STLP_DIM: int = 6
     TIME_DIM: int = 32
     LANE_DIM: int = 3
 
-    def setup(self):
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+
+    def _heads(self) -> Dict[str, Tuple[int, ...]]:
+        """Output widths of every Dense stack this configuration has."""
         cfg = self.cfg
         h = tuple(cfg.hiddens)
-        dt = jnp.bfloat16 if cfg.compute_dtype == "bfloat16" else jnp.float32
-        self.ego_encoder = MLP(h + (self.FEAT_DIM,), dt)
-        self.neighbor_encoder = MLP(h + (self.FEAT_DIM,), dt)
-        self.lane_encoder = MLP(h + (self.FEAT_DIM,), dt)
-        self.policy_net = MLP(h + (cfg.nt * 2,), dt)
+        heads = {"ego_encoder": h + (self.FEAT_DIM,),
+                 "neighbor_encoder": h + (self.FEAT_DIM,),
+                 "lane_encoder": h + (self.FEAT_DIM,),
+                 "policy_net": h + (cfg.nt * 2,)}
         if cfg.vae:
-            self.traj_encoder = MLP(h + (cfg.vae_dim * 2,), dt)
+            heads["traj_encoder"] = h + (cfg.vae_dim * 2,)
         if cfg.rect_head:
             if cfg.diverse_loss:
-                self.merge_net = MLP((32, 32, cfg.nt * 2), dt)
-            self.rect_net = MLP(tuple(cfg.rect_hiddens) + (cfg.nt * 2,), dt)
+                heads["merge_net"] = (32, 32, cfg.nt * 2)
+            heads["rect_net"] = tuple(cfg.rect_hiddens) + (cfg.nt * 2,)
+        return heads
+
+    def _bind(self, scope: _Scope) -> "Net":
+        """A copy of this net whose head attributes (``self.ego_encoder``
+        ...) run against ``scope``'s parameters."""
+        dt = (jnp.bfloat16 if self.cfg.compute_dtype == "bfloat16"
+              else jnp.float32)
+        bound = copy.copy(self)
+        for name, features in self._heads().items():
+            setattr(bound, name, functools.partial(scope.mlp, name, features,
+                                                   dt))
+        return bound
+
+    def init(self, key: Array, *args, method=None, **kw) -> Dict:
+        """Parameters for every head ``method`` (default ``__call__``)
+        reaches on these inputs."""
+        scope = _Scope({}, key)
+        (method or Net.__call__)(self._bind(scope), *args, **kw)
+        return {"params": scope.params}
+
+    def apply(self, params: Dict, *args, method=None, **kw):
+        """Run ``method`` (default ``__call__``) with ``params``."""
+        return (method or Net.__call__)(self._bind(_Scope(params["params"])),
+                                        *args, **kw)
 
     # ------------------------------------------------------------------
     def encode(self, batch: Dict[str, Array]) -> Array:
@@ -340,9 +404,8 @@ def make_cm_eps_fn(params, batch: Dict[str, Array], highlevel: Array,
       candidate axis minor.
 
     Layers 2+ run as (bs, h, R) x (h, k) batched matmuls.  The reverse
-    scan therefore needs NO per-step layout transposes (the round-3 trace
-    showed 2 small transposes x 99 denoise steps = 6.5 ms/plan-step,
-    docs/PERF.md).  Split == fused Dense up to bf16 summation order
+    scan therefore needs NO per-step layout transposes.  Split == fused
+    Dense up to bf16 summation order
     (exact in fp32; equality-tested in tests/test_diffusion.py).
 
     Returns ``eps_cm(x_cm, t_scalar) -> eps`` on (bs, nt, 2, R) arrays,
@@ -393,29 +456,12 @@ def make_cm_eps_fn(params, batch: Dict[str, Array], highlevel: Array,
         te = pos_encoding(jnp.full((1, 1), t_scalar, jnp.float32), TD)
         h = (base_cm + (te.astype(dt) @ Wt)[0][None, :, None]
              + mm(x_cm.reshape(bs, D, R).astype(dt), Wn))
-        h = nn.relu(h)
+        h = jax.nn.relu(h)
         for i in range(1, nl - 1):
-            h = nn.relu(mm(h, kern[i].astype(dt))
-                        + bias[i].astype(dt)[None, :, None])
+            h = jax.nn.relu(mm(h, kern[i].astype(dt))
+                            + bias[i].astype(dt)[None, :, None])
         raw = (mm(h, kern[-1].astype(dt))
                + bias[-1].astype(dt)[None, :, None])
         return raw.astype(jnp.float32).reshape(bs, cfg.nt, 2, R) + x_cm
 
-    # raw operand views for the Pallas superstep kernel
-    # (ops/pallas_guidance.superstep_call): the same split-MLP pieces,
-    # pre-sliced by control channel (row d = t*2 + c of the (D, h1) noise
-    # block) and pre-transposed so the kernel's matmuls are plain
-    # dot((rows, k), (k, C)) with NO in-kernel transposes or stride-2
-    # slicing.  bias0 / feature / highlevel / stlp live inside base_cm.
-    eps_cm.operands = dict(
-        base_cm=base_cm,                      # (bs, h1, R), compute dtype
-        Wt=Wt,                                # (TIME_DIM, h1)
-        WnwT=Wn[0::2].T, WnaT=Wn[1::2].T,     # (h1, nt) each
-        mid=[(kern[i].astype(dt).T, bias[i].astype(dt).reshape(-1, 1))
-             for i in range(1, nl - 1)],      # [(k, h) W^T, (k, 1) b]
-        WowT=kern[-1].astype(dt)[:, 0::2].T,  # (nt, h_last)
-        WoaT=kern[-1].astype(dt)[:, 1::2].T,
-        bow=bias[-1].astype(dt)[0::2].reshape(-1, 1),   # (nt, 1)
-        boa=bias[-1].astype(dt)[1::2].reshape(-1, 1),
-        dt=dt, bs=bs, R=R, nt=cfg.nt)
     return eps_cm

@@ -38,7 +38,7 @@ def rollout_scan(s0: Array, us: Array, dt: float) -> Array:
 
 
 def rollout(s0: Array, us: Array, dt: float) -> Array:
-    """Explicit-Euler rollout — closed form via prefix sums (TPU-native).
+    """Explicit-Euler rollout — closed form via prefix sums.
 
     The Euler recurrence is associative in (theta, v): theta_t / v_t are
     exclusive prefix sums of the controls, and x_t / y_t are prefix sums of

@@ -25,6 +25,22 @@ Array = jax.Array
 # point-to-polyline signed distance
 # ---------------------------------------------------------------------------
 
+def segment_argmin(points: Array, lanes: Array) -> Array:
+    """Index of the segment minimizing d(p, w_i) + d(p, w_{i+1}) for each
+    point: (n, T, >=2) points, (n, n_segs, >=2) waypoints -> (n, T)."""
+    pd = jnp.linalg.norm(points[..., None, :2] - lanes[..., None, :, :2],
+                         axis=-1)                            # (n, T, n_segs)
+    return jnp.argmin(pd[..., :-1] + pd[..., 1:], axis=-1)
+
+
+def take_rows(table: Array, idx: Array) -> Array:
+    """``out[..., t, :] = table[..., idx[..., t], :]``: rows of a
+    (..., S, d) table picked by an in-range (..., T) index (leading dims
+    broadcast)."""
+    return jnp.take_along_axis(table, idx[..., None], axis=-2,
+                               mode="promise_in_bounds")
+
+
 def point_to_polyline(points: Array, lanes: Array, clip: bool = False,
                       with_angle: bool = False, inline: bool = False):
     """Signed distance from trajectory points to a lane centerline.
@@ -42,15 +58,11 @@ def point_to_polyline(points: Array, lanes: Array, clip: bool = False,
     lanes = lanes.astype(jnp.float32)
     n_segs = lanes.shape[-2]
 
-    # (n, T, n_segs) distances to each waypoint
-    pd = jnp.linalg.norm(points[..., None, :2] - lanes[..., None, :, :2],
-                         axis=-1)
-    min_idx = jnp.argmin(pd[..., :-1] + pd[..., 1:], axis=-1)     # (n, T)
-    # segment-endpoint selection as a one-hot matmul: generic gathers lower
-    # to pathologically slow loops on TPU, while this is a tiny MXU contract
-    sel = jax.nn.one_hot(min_idx, n_segs - 1, dtype=points.dtype)  # (n,T,S)
-    p2 = jnp.einsum("...ts,...sd->...td", sel, lanes[..., :-1, :])
-    p3 = jnp.einsum("...ts,...sd->...td", sel, lanes[..., 1:, :])
+    min_idx = segment_argmin(points, lanes)                      # (n, T)
+    # segment endpoints by gather: exact, whatever precision the device
+    # gives float32 matrix products
+    p2 = take_rows(lanes[..., :-1, :], min_idx)                  # (n, T, 3)
+    p3 = take_rows(lanes[..., 1:, :], min_idx)
 
     x1, y1 = points[..., 0], points[..., 1]
     x2, y2 = p2[..., 0], p2[..., 1]

@@ -2,9 +2,8 @@
 
 Split out of ``specs.py`` (it had grown into a god module, VERDICT r4):
 this is the guidance-loss subsystem — the freeze/selection machinery and
-the fused hinge loss that ``ops/pallas_guidance.py`` mirrors in-kernel and
-``diffusion._guidance_step`` consumes.  ``specs`` re-exports every public
-name here, so all call sites (``specs.CandMinorGuidanceLoss``,
+the fused hinge loss that ``diffusion._guidance_step`` consumes.
+``specs`` re-exports every public name here, so all call sites (``specs.CandMinorGuidanceLoss``,
 ``specs.make_guidance_loss``, ``specs.mask_mean``) are unchanged.
 
 Reference parity anchors: the guidance inner loop (nusc_train.py:557-627),
@@ -46,9 +45,7 @@ class CandMinorGuidanceLoss:
     candidate axis R = 3*M minor (lanes pd (bs,T,S,R), clearance pairs
     (bs,K,T,nLe,nLn,R)), the rollout/scorer/reduction chain is one
     function XLA fuses end-to-end, and with ``cfg.guidance_remat`` the
-    backward pass recomputes instead of storing residuals — measured ~1.2x
-    over the row-major TiledScorer grad on the guidance microbench
-    (scripts/perf_micro4.py, docs/PERF.md round 3).
+    backward pass recomputes instead of storing residuals.
 
     Candidate index is j-major (r = j*M + m): lane selection per row
     becomes static slicing at M boundaries.  ``__call__(mu, thres)`` takes
@@ -126,8 +123,8 @@ class CandMinorGuidanceLoss:
             else jnp.float32
         self.lxr_g = self.lxr.astype(self.gdtype)
         self.lyr_g = self.lyr.astype(self.gdtype)
-        # all 5 lane endpoint payloads ride ONE one-hot einsum pass
-        # (docs/PERF.md #8); stored in geometry dtype
+        # the 5 lane endpoint payloads, gathered together by
+        # _lane_select; stored in geometry dtype
         self.lane_payload_g = jnp.stack(
             [self.lxr[:, :-1], self.lyr[:, :-1], self.lthr[:, :-1],
              self.lxr[:, 1:], self.lyr[:, 1:]],
@@ -166,29 +163,29 @@ class CandMinorGuidanceLoss:
             [zer, jnp.cumsum(v_s * sth * cfg.dt, axis=1)[:, :-1]], axis=1)
         return x_s, y_s, th_s, v_s, cth, sth
 
-    def _lane_select(self, x_s: Array, y_s: Array):
-        """Nearest-segment search + endpoint gather (the (bs,T,S,R) hot
-        part of the lane terms).  Returns per-(t,row) segment constants."""
-        S = self.lxr.shape[1]
+    def _lane_argmin(self, x_s: Array, y_s: Array) -> Array:
+        """Nearest-segment search, the (bs,T,S,R) hot part of the lane
+        terms.  Returns the segment index per (t, row), (bs,T,R)."""
         gd = self.gdtype
         xg, yg = x_s.astype(gd), y_s.astype(gd)
         pdx = xg[:, :, None, :] - self.lxr_g[:, None]         # (bs,T,S,R)
         pdy = yg[:, :, None, :] - self.lyr_g[:, None]
         pd = jnp.sqrt(pdx * pdx + pdy * pdy)
-        segc = pd[:, :, :-1] + pd[:, :, 1:]
-        mi = jnp.argmin(segc, axis=2)                         # (bs,T,R)
-        sel = jax.lax.stop_gradient(
-            (jnp.arange(S - 1)[None, None, :, None]
-             == mi[:, :, None, :]).astype(gd))
-        # all 5 endpoint payloads in ONE pass over the (bs,T,S-1,R)
-        # one-hot instead of five (the one-hot dominates the bandwidth);
-        # fp32 accumulation keeps the gathered values exact up to the
-        # stored payload dtype
-        x2, y2, th2, x3, y3 = jnp.einsum(
-            "btsr,bcsr->cbtr", sel, self.lane_payload_g,
-            preferred_element_type=jnp.float32).astype(gd)
+        return jnp.argmin(pd[:, :, :-1] + pd[:, :, 1:], axis=2)
+
+    def _lane_gather(self, mi: Array):
+        """Per-(t,row) segment constants of the segments ``mi`` picks."""
+        S = self.lxr.shape[1]
+        # all 5 endpoint payloads in ONE gather along the segment axis
+        x2, y2, th2, x3, y3 = jnp.moveaxis(jnp.take_along_axis(
+            self.lane_payload_g[:, :, None], mi[:, None, :, None],
+            axis=3, mode="promise_in_bounds")[:, :, :, 0], 1, 0)
         return dict(x2=x2, y2=y2, th2=th2, x3=x3, y3=y3,
                     first=(mi == 0), last=(mi == S - 2))
+
+    def _lane_select(self, x_s: Array, y_s: Array):
+        """Nearest-segment search + endpoint gather."""
+        return self._lane_gather(self._lane_argmin(x_s, y_s))
 
     def _lane_terms(self, x_s, y_s, th_s, lsel):
         """Signed lane distance + heading deviation from frozen-or-fresh
@@ -220,11 +217,10 @@ class CandMinorGuidanceLoss:
         th_all = 1.0 - jnp.cos(lsel["th2"].astype(f32) - th_s)
         return d_all, th_all
 
-    def _clear_select(self, x_s, y_s, cth, sth):
+    def _clear_pair(self, x_s, y_s, cth, sth):
         """Nearest (ego-disc, neighbor-disc) pair per (k,t,row) — the
-        (bs,K,T,nLe,nLn,R) hot part of the clearance.  Gathers the selected
-        ego-disc offset and neighbor-disc center via one-hot einsum (no
-        TPU gathers)."""
+        (bs,K,T,nLe,nLn,R) hot part of the clearance.  Returns the ego-disc
+        and neighbor-disc indices, (bs,K,T,R) each."""
         gd = self.gdtype
         xg, yg = x_s.astype(gd), y_s.astype(gd)
         cg, sg = cth.astype(gd), sth.astype(gd)
@@ -244,50 +240,42 @@ class CandMinorGuidanceLoss:
             # distances.  Can differ from the exact pair argmin when the
             # neighbor straddles the ego; the frozen-selection path is
             # already trust-region-stale, so this only perturbs WHICH
-            # near-minimal pair is frozen (opt-in, measured before use).
+            # near-minimal pair is frozen (opt-in).
             ncx = jnp.mean(self.nx_g, axis=-1)                # (bs,K,T)
             ncy = jnp.mean(self.ny_g, axis=-1)
             de = ((exd[:, None] - ncx[..., None, None]) ** 2
                   + (eyd[:, None] - ncy[..., None, None]) ** 2)
-            ie = jax.lax.stop_gradient(
-                jnp.argmin(de, axis=3))                       # (bs,K,T,R)
-            sel_e = (jnp.arange(nLe)[None, None, None, :, None]
-                     == ie[:, :, :, None, :]).astype(gd)
-            ex_sel = jnp.einsum("bkter,bter->bktr", sel_e,
-                                exd, preferred_element_type=jnp.float32
-                                ).astype(gd)
-            ey_sel = jnp.einsum("bkter,bter->bktr", sel_e,
-                                eyd, preferred_element_type=jnp.float32
-                                ).astype(gd)
+            ie = jnp.argmin(de, axis=3)                       # (bs,K,T,R)
+            take_e = lambda v: jnp.take_along_axis(
+                v[:, None], ie[:, :, :, None], axis=3,
+                mode="promise_in_bounds")[:, :, :, 0]         # (bs,K,T,R)
+            ex_sel, ey_sel = take_e(exd), take_e(eyd)
             dn = ((ex_sel[..., None, :] - self.nx_g[..., None]) ** 2
                   + (ey_sel[..., None, :] - self.ny_g[..., None]) ** 2)
-            inn = jax.lax.stop_gradient(jnp.argmin(dn, axis=3))
+            inn = jnp.argmin(dn, axis=3)
         else:
             dxp = (exd[:, None, :, :, None, :]
                    - self.nx_g[:, :, :, None, :, None])
             dyp = (eyd[:, None, :, :, None, :]
                    - self.ny_g[:, :, :, None, :, None])
             d2p = dxp * dxp + dyp * dyp       # (bs,K,T,nLe,nLn,R)
-            P = nLe * nLn
-            d2f = d2p.reshape(bs, K, T, P, R)
-            pi = jnp.argmin(d2f, axis=3)                      # (bs,K,T,R)
+            pi = jnp.argmin(d2p.reshape(bs, K, T, nLe * nLn, R),
+                            axis=3)                           # (bs,K,T,R)
             # decompose the flat pair argmin into (ego-disc,
-            # neighbor-disc) indices: two nL-wide one-hots instead of one
-            # P-wide (4x smaller selection tensors, no payload tile)
-            ie = jax.lax.stop_gradient(pi // nLn)
-            inn = jax.lax.stop_gradient(pi % nLn)
-        sele = (jnp.arange(nLe)[None, None, None, :, None]
-                == ie[:, :, :, None, :]).astype(gd)           # (bs,K,T,e,R)
-        seln = (jnp.arange(nLn)[None, None, None, :, None]
-                == inn[:, :, :, None, :]).astype(gd)
-        axe_sel = jnp.einsum("bkter,e->bktr", sele, axg,
-                             preferred_element_type=jnp.float32).astype(gd)
-        nxy = jnp.stack([self.nx_g, self.ny_g],
-                        axis=-2)                              # (bs,K,T,2,nLn)
-        nx_sel, ny_sel = jnp.einsum(
-            "bktnr,bktcn->cbktr", seln, nxy,
-            preferred_element_type=jnp.float32).astype(gd)
-        return dict(axe=axe_sel, nx=nx_sel, ny=ny_sel)
+            # neighbor-disc) indices
+            ie, inn = pi // nLn, pi % nLn
+        return jax.lax.stop_gradient(ie), jax.lax.stop_gradient(inn)
+
+    def _clear_gather(self, ie: Array, inn: Array):
+        """The selected ego-disc offset and neighbor-disc center."""
+        take_n = lambda v: jnp.take_along_axis(
+            v, inn, axis=3, mode="promise_in_bounds")         # (bs,K,T,R)
+        return dict(axe=jnp.take(self.axe.astype(self.gdtype), ie),
+                    nx=take_n(self.nx_g), ny=take_n(self.ny_g))
+
+    def _clear_select(self, x_s, y_s, cth, sth):
+        """Nearest disc pair search + gather of its geometry."""
+        return self._clear_gather(*self._clear_pair(x_s, y_s, cth, sth))
 
     def _clear_mnd(self, x_s, y_s, cth, sth, csel):
         """Min neighbor clearance signal (bs,T,R)."""
@@ -350,7 +338,7 @@ class CandMinorGuidanceLoss:
             # R axis at the non-shard-aligned M boundary — same values
             # column-for-column (equality-tested), ~1.6x redundant
             # reduction FLOPs, but no slice/pad halo exchanges when R is
-            # sharded over a "cand" mesh axis (docs/PERF.md census)
+            # sharded over a "cand" mesh axis
             sm = lambda rows: -jax.scipy.special.logsumexp(
                 jnp.stack(rows, axis=1).astype(self.dtype) * (-tau),
                 axis=1) / tau

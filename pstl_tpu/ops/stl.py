@@ -1,4 +1,4 @@
-"""Differentiable Signal Temporal Logic (STL) robustness — TPU-native.
+"""Differentiable Signal Temporal Logic (STL) robustness.
 
 Capability parity with the reference's ``stl_d_lib.py`` (operators: AP, And,
 ListAnd, Or, Not, Imply, Eventually, Always, Once, Until/UntimedUntil; soft
@@ -10,7 +10,7 @@ for XLA:
   ``lax.scan`` bodies (the guidance inner loop fuses it into the sampler).
 - The reference's per-timestep Python window slicing
   (``stl_d_lib.py:148-169``, O(T^2) host loop) becomes a single masked
-  reduction against a precomputed (T, T) window mask — one fused VPU op.
+  reduction against a precomputed (T, T) window mask — one fused elementwise op.
 - ``UntimedUntil``'s forward/backward ``logcumsumexp`` scans
   (``stl_d_lib.py:186-192``) become ``jax.lax.associative_scan`` over
   ``logaddexp`` — O(log T) depth on device.

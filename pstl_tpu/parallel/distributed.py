@@ -1,8 +1,8 @@
 """Multi-host initialization.
 
-The reference has no distributed support (SURVEY.md §2.9); the TPU framework
+The reference has no distributed support (SURVEY.md §2.9); this framework
 scales the same single-program code across hosts: `jax.distributed` wires
-the processes over DCN, the global mesh spans all devices, and per-host data
+the processes over the host network, the global mesh spans all devices, and per-host data
 loading feeds the local shard of the batch (host h loads rows
 [h*B/H, (h+1)*B/H) and `jax.make_array_from_process_local_data` assembles
 the global sharded batch).

@@ -2,14 +2,16 @@
 
 The reference is single-process/single-GPU (SURVEY.md §2.9 — no NCCL/MPI/
 torch.distributed anywhere); its semantic parallel axes are the dense batch
-(bs x n_randoms x 3) and the candidate axes.  The TPU framework shards those
-embarrassingly-parallel leading axes over a 1-D ``data`` mesh riding ICI:
+(bs x n_randoms x 3) and the candidate axes.  This framework shards those
+embarrassingly-parallel leading axes over a 1-D ``data`` mesh (device
+links within a host; the mesh follows ``jax.devices()`` order and assumes
+no topology):
 
 - batches enter with ``shard_batch`` (leading axis split across devices),
 - params/optimizer state are replicated,
 - loss/metric reductions become compiler-scheduled ``psum``s (jnp.mean inside
   jit over sharded arrays lowers to the collective automatically),
-- multi-host extends the same mesh over DCN via ``jax.distributed``.
+- multi-host extends the same mesh across hosts via ``jax.distributed``.
 
 Model parallelism is unnecessary at this scale (~0.5M-param MLP), so the
 design is pure DP with XLA inserting all collectives.
@@ -83,7 +85,7 @@ def psum_metrics(metrics: Dict[str, Array], axis: str = "data"):
 # candidate-minor sampler layout).  The planner's math is per-candidate
 # independent until the final selection argmax, so constraining the
 # candidate axis at the sampler's noise-creation point lets GSPMD shard
-# the whole denoise+guidance scan over ICI, inserting collectives only at
+# the whole denoise+guidance scan over the mesh, inserting collectives only at
 # the cross-candidate selection/diversity reductions.  Opt-in via
 # ``candidate_sharding(mesh, "cand")`` around the jitted plan step; the
 # hooks below are no-ops otherwise.

@@ -59,7 +59,9 @@ def convex_refinement(nn_controls: Array, all_steps: Array,
 
     def combine(lamdas):
         ratios = jax.nn.softmax(lamdas, axis=-1)   # (N, K)
-        mix = jnp.einsum("ntck,nk->ntc", cands, ratios)
+        # elementwise fp32 weighted sum: a matrix product could run in a
+        # reduced precision on the GPU
+        mix = jnp.sum(cands * ratios[:, None, None, :], axis=-1)
         return (jax.lax.stop_gradient(nn_controls) * (1 - violated)
                 + violated * mix)
 

@@ -2,9 +2,10 @@
 
 The native library (``shardstore.cpp``) memory-maps flat binary column files
 and assembles batches with a thread pool + double-buffered prefetch — the
-TPU-native replacement for the reference's multiprocess DataLoader and
-per-sample .npy sidecars.  Python owns the metadata (meta.json) and the
-writer; C++ owns the hot gather path.
+replacement for the reference's multiprocess DataLoader and per-sample .npy
+sidecars.  Python owns the metadata (meta.json) and the writer; C++ owns
+the hot gather path.  The library is built from ``shardstore.cpp`` with
+``g++`` at first use, into ``build/`` beside this file (git-ignored).
 """
 
 from __future__ import annotations
@@ -18,16 +19,21 @@ from typing import Dict, Iterator, Optional, Sequence
 import numpy as np
 
 _SRC = os.path.join(os.path.dirname(__file__), "shardstore.cpp")
-_LIB = os.path.join(os.path.dirname(__file__), "_shardstore.so")
+_LIB = os.path.join(os.path.dirname(__file__), "build", "_shardstore.so")
 _lib = None
 
 
 def _build_lib() -> str:
     if (not os.path.exists(_LIB)
             or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
+        os.makedirs(os.path.dirname(_LIB), exist_ok=True)
+        # compile beside the target, then rename: a concurrent loader never
+        # maps a half-written library
+        tmp = f"{_LIB}.{os.getpid()}.tmp"
         subprocess.check_call(
             ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-             _SRC, "-o", _LIB])
+             _SRC, "-o", tmp])
+        os.replace(tmp, _LIB)
     return _LIB
 
 

@@ -6,7 +6,7 @@
 // nusc_train.py:169-187 / nusc_dataset.py:202-232): fixed-shape scene
 // tensors live in flat binary column files, batches are assembled by a
 // thread pool directly out of the page cache into pinned contiguous
-// buffers the TPU client can donate.
+// buffers the device client can donate.
 //
 // Layout on disk:  <dir>/meta.json        (written by python)
 //                  <dir>/<column>.bin     (C-order, rows x row_bytes)

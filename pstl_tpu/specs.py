@@ -35,8 +35,7 @@ Array = jax.Array
 
 # the guidance-loss subsystem (CandMinorGuidanceLoss, its freeze/selection
 # machinery, mask_mean and the stlp layout constants) lives in
-# pstl_tpu/ops/guidance_loss.py beside the Pallas kernels that mirror it;
-# re-exported here so the public specs.* API is unchanged
+# pstl_tpu/ops/guidance_loss.py; re-exported here so the public specs.* API is unchanged
 from pstl_tpu.ops.guidance_loss import (  # noqa: F401
     I_DMAX, I_DMIN, I_DSAFE, I_THMAX, I_VAL, I_VMAX, I_VMIN,
     CandMinorGuidanceLoss, make_guidance_loss, mask_mean)
@@ -80,12 +79,6 @@ def prep_signals(x: Dict[str, Array], cfg: Config,
         out["min_nei_d"] = geom.min_clearance_pre(
             x["ego_traj"][..., 0:3], x["nei_discs"], cfg.ego_L, cfg.ego_W,
             cfg.refined_nL)
-    elif cfg.use_pallas_clearance and not need_full and cfg.refined_nW == 1:
-        from pstl_tpu.ops import pallas_kernels as pk
-        out["min_nei_d"] = pk.min_neighbor_distance_fused(
-            x["ego_traj"][..., 0:4], nei[..., 1:7], nei[..., I_VAL],
-            ego_L=cfg.ego_L, ego_W=cfg.ego_W, num_L=cfg.refined_nL,
-            interpret=cfg.pallas_interpret)
     else:
         res = geom.min_neighbor_distance(
             x["ego_traj"][..., 0:4], nei[..., 1:7], nei[..., I_VAL],
@@ -189,7 +182,7 @@ class ClauseBank:
     def __init__(self, cfg: Config):
         self.cfg = cfg
         # robustness accumulation dtype (cfg.robustness_dtype): fp32 default;
-        # bf16 measured viable on scene-local coordinates (docs/PERF.md)
+        # bf16 opt-in for scene-local coordinates
         self.dtype = jnp.bfloat16 if cfg.robustness_dtype == "bfloat16" \
             else jnp.float32
 
@@ -392,8 +385,7 @@ class TiledScorer:
 
 
 # CandMinorGuidanceLoss + make_guidance_loss moved to
-# pstl_tpu/ops/guidance_loss.py (the guidance-loss subsystem lives
-# beside the Pallas kernels that mirror it); re-exported above so
+# pstl_tpu/ops/guidance_loss.py; re-exported above so
 # specs.CandMinorGuidanceLoss / specs.make_guidance_loss keep working.
 
 

@@ -6,7 +6,7 @@ mask_mean(relu(0.01 - robustness)) + control-bound penalty
 (``compute_trajopt_loss_lite`` nusc_train.py:287-316 and the epoch-loop
 branch nusc_train.py:1303-1328).
 
-TPU-first: the whole 2000-iteration optimization is ONE jitted
+Design: the whole 2000-iteration optimization is ONE jitted
 ``lax.scan`` of Adam steps — rollout, STL robustness, backward, and update
 all fused into a single device program; scenes/seeds/maneuvers are one big
 leading batch axis that shards over the data mesh.

@@ -286,7 +286,7 @@ def test_guidance_positive_offset_quirk_parity():
 
 @pytest.mark.slow
 def test_cm_sampler_layout_parity(monkeypatch):
-    """cfg.cm_sampler: (a) models.make_cm_eps_fn equals the flax diffusion
+    """cfg.cm_sampler: (a) models.make_cm_eps_fn equals the Net diffusion
     forward on matched inputs (the linear layer-1 split is exact in fp32);
     (b) the full candidate-minor reverse scan equals the row-major scan
     when the noise stream is pinned to a layout-independent draw; (c) the
@@ -389,81 +389,3 @@ def test_sample_noise_scale():
         flat = c.reshape(n, -1)
         return float(np.linalg.norm(flat[:, None] - flat[None], axis=-1).mean())
     assert spread(hot) > spread(run(0.0))
-
-
-def _superstep_equality(trig_kws):
-    """cfg.guidance_pallas_superstep (interpret mode): the whole-denoise-
-    step Pallas scan — in-kernel split-MLP eps, posterior, fused-freeze
-    guidance, noise — reproduces the plain cm-sampler reverse scan.  The
-    noise split-chain is replicated exactly, so the comparison is
-    end-to-end on the same key."""
-    from pstl_tpu.models import net as models_net
-
-    cfg = small_cfg(guidance=True, guidance_niters=2, guidance_lr=0.05,
-                    guidance_reuse_selection=True, guidance_fused_loss=True,
-                    tiled_scorer=True)
-    bs = 2
-    batch = make_batch(cfg, bs=bs)
-    batch["neighbors"] = batch["neighbor_trajs_aug"][:, :, 0, :]
-    batch["neighbors_traj"] = batch["neighbor_trajs_aug"]
-    stlp = specs.calibrate_stlp(batch, batch["ego_traj"][..., :4], cfg)
-    dense = specs.densify_batch(batch, stlp, cfg, key=jax.random.PRNGKey(0))
-    n = bs * cfg.n_randoms * 3
-    net = Net(cfg)
-    hl = dense["highlevel_dense"]
-    ext0 = {"timestep": jnp.ones((n, 1)), "highlevel": hl,
-            "noise": jnp.zeros((n, cfg.nt * 2))}
-    params = net.init(jax.random.PRNGKey(1), dense, ext0)
-    _, feature = net.apply(params, dense, ext0, get_feature=True)
-
-    def apply_fn(ext):
-        return net.apply(params, dense, ext, prev_feature=feature)
-
-    states = batch["ego_traj"][:, 0, :4]
-    states_flat = jnp.broadcast_to(states[:, None, None],
-                                   (bs, cfg.n_randoms, 3, 4)).reshape(n, 4)
-    valid = dense["valids_dense"].reshape(-1)
-    score_rows = specs.make_score_rows(batch, dense, cfg)
-    fl = specs.make_guidance_loss(batch, dense, cfg, states, valid)
-    ctx = diffusion.make_guidance_ctx(score_rows, valid, states_flat, fl)
-    coeffs = diffusion.get_coeffs(cfg)
-    cm_fn = models_net.make_cm_eps_fn(params, dense, hl, feature, cfg)
-    key = jax.random.PRNGKey(11)
-
-    for trig_kw in trig_kws:
-        c_cm, steps_cm = diffusion.reverse_sample(
-            key, apply_fn, dense, hl, feature, cfg.with_(**trig_kw), coeffs,
-            n, guidance_ctx=ctx, maximize=True, cm_fn=cm_fn)
-        if hasattr(fl, "_pallas_inv"):
-            del fl._pallas_inv
-        css = cfg.with_(guidance_pallas_superstep=True,
-                        pallas_interpret=True, **trig_kw).finalize()
-        c_ss, steps_ss = diffusion.reverse_sample(
-            key, apply_fn, dense, hl, feature, css, coeffs, n,
-            guidance_ctx=ctx, maximize=True, cm_fn=cm_fn)
-        np.testing.assert_allclose(np.asarray(c_ss), np.asarray(c_cm),
-                                   rtol=1e-4, atol=1e-4)
-        np.testing.assert_allclose(np.asarray(steps_ss),
-                                   np.asarray(steps_cm),
-                                   rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.slow
-def test_superstep_matches_cm_sampler():
-    _superstep_equality(({},))                     # always-guided
-
-
-@pytest.mark.slow
-def test_superstep_matches_cm_sampler_mixed_schedule():
-    # mixed trigger schedule: the lax.cond guided/unguided kernel dispatch
-    _superstep_equality(({"guidance_before": 4},))
-
-
-def test_superstep_config_coupling():
-    c = Config(diffusion=True, guidance=True,
-               guidance_pallas_superstep=True).finalize()
-    assert (c.guidance_pallas_fold2 and c.guidance_pallas_fuse_freeze
-            and c.guidance_pallas)
-    with pytest.raises(ValueError):
-        Config(diffusion=True, guidance=True, cm_sampler=False,
-               guidance_pallas_superstep=True).finalize()

@@ -32,7 +32,7 @@ def test_mapped_fields_exist():
 def test_extras_exist():
     cfg = Config()
     for field in ("sampler", "ddim_steps", "ddim_eta",
-                  "guidance_positive_offset_quirk", "use_pallas_clearance",
+                  "guidance_positive_offset_quirk",
                   "mesh_shape", "compute_dtype"):
         assert hasattr(cfg, field), field
 
